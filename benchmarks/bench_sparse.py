@@ -1,5 +1,5 @@
 """Measure dense vs banded vs tiled-sparse K1 backends on a large
-staircase problem, on the default (TPU) platform.
+staircase problem, on the default device.
 
 Usage: python benchmarks/bench_sparse.py [m]
 """
@@ -64,6 +64,9 @@ def main():
     m = int(sys.argv[1]) if len(sys.argv) > 1 else 4096
     from tulip_tpu.kkt import (BandedK1Backend, DenseK1Backend,
                                SparseK1Backend)
+    from tulip_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
     cyclic = "--cyclic" in sys.argv
     for dtype in (np.float32,):
         A = staircase(m, dtype, cyclic=cyclic)
@@ -76,12 +79,9 @@ def main():
                    SparseK1Backend(block=256)):
             label = f"{be.name}" + (f"-B{be.block}" if be.name == "sparse"
                                     else "")
-            try:
-                dt, res, ok, stname = time_backend(be, A)
-                print(f"  {label:12s} {dt*1e3:9.2f} ms/iter  resid {res:.2e}"
-                      f"  ok={ok} state={stname}")
-            except Exception as e:
-                print(f"  {label:12s} FAILED: {type(e).__name__}: {e}")
+            dt, res, ok, stname = time_backend(be, A)
+            print(f"  {label:12s} {dt*1e3:9.2f} ms/iter  resid {res:.2e}"
+                  f"  ok={ok} state={stname}")
 
 
 if __name__ == "__main__":

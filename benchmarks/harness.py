@@ -40,6 +40,9 @@ def main():
 
     import tulip_tpu as tlp
     from tulip_tpu.status import TerminationStatus
+    from tulip_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
 
     records = []
 

@@ -1,6 +1,6 @@
 """Scenario-batched solving: many LPs in one vmapped solve.
 
-No reference analogue — this is the TPU-native scaling axis (SURVEY §2.6).
+No reference analogue — this is the batched scaling axis (SURVEY §2.6).
 """
 
 import numpy as np

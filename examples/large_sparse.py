@@ -3,14 +3,14 @@
 Builds an m=16384 multiperiod staircase (2.1 M nonzeros) and solves it
 to the reference-default 1.49e-8 tolerances WITHOUT ever materializing
 the dense (m, n) constraint matrix: the standard form is assembled
-straight from COO into support-compressed MXU tiles
+straight from COO into support-compressed tiles
 (tulip_tpu/ipm/sparse_data.py), the symbolic plan is O(nnz), and the
 level-scheduled tile Cholesky factorizes on device. Dense A for this
 instance would be ~3.2 GB; the compressed arrays are ~200 MB.
 
 This is the capability the reference delegates to CHOLMOD-on-CSC
 (reference: src/KKT/Cholmod/sqd.jl:42-53) — run `python
-examples/large_sparse.py [m]` (CPU works; a TPU solves it faster after
+examples/large_sparse.py [m]` (CPU works; a GPU solves it faster after
 the one-time compile).
 """
 

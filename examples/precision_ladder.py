@@ -2,7 +2,7 @@
 examples/optimal_other_type.jl, which solves in Float32; the reference's
 test suite additionally runs BigFloat).
 
-TPU has no arbitrary-precision unit, so the ladder here is:
+The device has no arbitrary-precision unit, so the ladder here is:
 
     float32            ~1e-4 tolerances
     mixed              f32 factorize + f64 refine, 1e-8

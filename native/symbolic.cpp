@@ -2,7 +2,7 @@
 //
 // This is the host-side "scheduler" of the factorization (the role of
 // CHOLMOD's analyze phase, reference: src/KKT/Cholmod/spd.jl:30-38,
-// re-designed for MXU tiles): given the sparsity pattern of the constraint
+// re-designed for dense tiles): given the sparsity pattern of the constraint
 // matrix A it
 //   1. forms the adjacency of K = A Aᵀ,
 //   2. computes a reverse Cuthill-McKee ordering (George-Liu

@@ -1,5 +1,5 @@
 """The f64 factorization boundary and the dd-factorization fallback
-(VERDICT r3 item 7; the reference's BigFloat factorization role,
+(the reference's BigFloat factorization role,
 src/KKT/LDLFactorizations/ldlfact.jl:102-113, test/runtests.jl:9).
 
 Construction: A = the EXACT rational Cholesky factor of the Hilbert

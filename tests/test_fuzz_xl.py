@@ -1,5 +1,5 @@
 """XL randomized differential battery (slow tier) — the cheap substitute
-for MOI.Test.runtests breadth (VERDICT r4 item 4; reference:
+for MOI.Test.runtests breadth (reference:
 /root/reference/test/Interfaces/MOI_wrapper.jl:24-92 runs thousands of
 upstream assertions in four configs).
 

@@ -22,7 +22,7 @@ from tulip_tpu.status import TerminationStatus
 
 # Arithmetic parametrization (reference loops every IPM testset over
 # TvTYPES = [Float32, Float64, BigFloat], test/runtests.jl:9; the f32/f64
-# pair is the TPU-native ladder, extended precision is covered in
+# pair is the device ladder, extended precision is covered in
 # tests/test_doubledouble.py).
 DTYPES = [jnp.float32, jnp.float64]
 

@@ -134,8 +134,8 @@ def test_sparse_first_dense_column_smw_routing():
 
 
 def test_sparse_first_many_dense_columns_fall_back():
-    """Beyond the SMW regime (k > 8: measured ITERATION_LIMIT stalls,
-    BASELINE.md r4) auto routing refuses sparse-first and the dense
+    """Beyond the SMW regime (k > 8: measured ITERATION_LIMIT stalls)
+    auto routing refuses sparse-first and the dense
     probe routes to the direct K2 factorization."""
     mod, _ = _model(2048, dense_cols=24)
     sig = sparse_pattern_signals(mod.pbdata)

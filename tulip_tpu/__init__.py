@@ -1,4 +1,4 @@
-"""tulip_tpu — a TPU-native linear-programming solver built on JAX/XLA/Pallas.
+"""tulip_tpu — an interior-point linear-programming solver built on JAX/XLA.
 
 A from-scratch re-design (not a port) of the capabilities of Tulip.jl
 (reference: /root/reference, ds4dm/Tulip.jl v0.9.8):
@@ -12,9 +12,9 @@ A from-scratch re-design (not a port) of the capabilities of Tulip.jl
 - Host-side presolve/postsolve pipeline, MPS ingestion, attribute/parameter
   API (reference: src/Presolve/, src/Interfaces/).
 
-Architecture is TPU-first: model building, presolve and symbolic analysis run
-on the host; the per-iteration math runs as jitted device code over pytrees so
-it vmaps (scenario batches) and shards (block-angular / multi-chip) cleanly.
+Architecture: model building, presolve and symbolic analysis run on the
+host; the per-iteration math runs as jitted device code over pytrees so it
+vmaps (scenario batches) and shards (block-angular / multi-device) cleanly.
 """
 
 import jax as _jax

@@ -1,6 +1,7 @@
 """ctypes bindings for the native C++ MPS tokenizer.
 
-Loads (or builds, once, with the system g++) ``native/build/libtulip_mps.so``
+Loads ``native/build/libtulip_mps.so`` (rebuilt by ``make`` when its source
+is newer, :func:`tulip_tpu.utils.native_library`)
 and assembles its flat token arrays into a ProblemData, applying the shared
 semantics from :mod:`.semantics`. Falls back silently when the library
 can't be built — callers use :func:`native_available`.
@@ -9,21 +10,13 @@ can't be built — callers use :func:`native_available`.
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
 from typing import Dict, Optional
 
 import numpy as np
 
 from ..problem import INF, ProblemData, SparseAxis
+from ..utils import native_library
 from .semantics import apply_bound, row_bounds
-
-_REPO_ROOT = os.path.abspath(
-    os.path.join(os.path.dirname(__file__), "..", ".."))
-_SO_PATH = os.path.join(_REPO_ROOT, "native",
-                        os.environ.get("TULIP_NATIVE_DIR", "build"),
-                        "libtulip_mps.so")
-_SRC = os.path.join(_REPO_ROOT, "native", "mps_tokenizer.cpp")
 
 _lib = None
 _tried = False
@@ -63,24 +56,16 @@ class _MpsResult(ctypes.Structure):
     ]
 
 
-def _build() -> bool:
-    try:
-        subprocess.run(["make", "-C", os.path.join(_REPO_ROOT, "native")],
-                       check=True, capture_output=True, timeout=120)
-        return os.path.exists(_SO_PATH)
-    except Exception:
-        return False
-
-
 def _load():
     global _lib, _tried
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not os.path.exists(_SO_PATH) and not _build():
+    path = native_library("libtulip_mps.so")
+    if path is None:
         return None
     try:
-        lib = ctypes.CDLL(_SO_PATH)
+        lib = ctypes.CDLL(path)
         lib.tulip_parse_mps.restype = ctypes.POINTER(_MpsResult)
         lib.tulip_parse_mps.argtypes = [ctypes.c_char_p, ctypes.c_int64]
         lib.tulip_free_mps.argtypes = [ctypes.POINTER(_MpsResult)]

@@ -1,12 +1,12 @@
 """Scenario-batched LP solves: vmap over the whole IPM.
 
 The reference is strictly single-problem, single-thread (reference:
-SURVEY §2.6; src/model.jl:73 only sets BLAS threads). On TPU the win comes
-from batching: because the entire HSD solve is pure jitted code over
+SURVEY §2.6; src/model.jl:73 only sets BLAS threads). On an accelerator the
+win comes from batching: because the entire HSD solve is pure jitted code over
 pytrees (:mod:`.hsd`), ``vmap`` gives a batched solver for free — every
 iterate, residual, factorization and backsolve gains a leading batch
 dimension, so the per-iteration work becomes batched GEMMs / batched
-Cholesky that saturate the MXU.
+Cholesky.
 
 Convergence is per-instance: ``lax.while_loop`` under ``vmap`` keeps
 iterating until every lane's predicate is false, while each converged
@@ -84,8 +84,7 @@ def stack_lps_host(problems, dtype=None, m_pad=None, n_pad=None) -> LPData:
 
     Building per-instance device LPData and stacking on device
     (:func:`stack_lps`) dispatches thousands of tiny transfers/ops — fine
-    locally, minutes of pure latency on remote/tunneled accelerators. This
-    path keeps everything in numpy until the single final transfer.
+    for small batches, slow for thousands of instances. This path keeps everything in numpy until the single final transfer.
 
     Bounds may be infinite; they become the l/u + lflag/uflag masked form.
     Padded columns are pinned to zero (l = u = 0, both flags on) and padded
@@ -198,7 +197,7 @@ def batched_mpc_solve(backend, opts, dats: LPData) -> HSDState:
 def shard_batch(dats: LPData, mesh, axis: str = "batch") -> LPData:
     """Place a stacked batch with its leading axis sharded over ``mesh``;
     under jit the whole batched solve then partitions across devices with
-    zero collectives (embarrassingly parallel over ICI-connected chips)."""
+    zero collectives (embarrassingly parallel over devices)."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     def put(x):

@@ -32,8 +32,8 @@ class LPData(NamedTuple):
     """Standard-form problem data; a pytree of device arrays.
 
     ``A`` is the dense constraint matrix (m, n). Dense is the deliberate
-    TPU-first choice for small/medium LPs and batched scenario solves — the
-    MXU eats (m,n)@(n,m) normal-equations products; structured/blocked
+    choice for small/medium LPs and batched scenario solves — the
+    normal-equations products are plain GEMMs; structured/blocked
     matrices get their own data types and KKT backends.
 
     ``l``/``u`` are finite-valued (masked entries hold 0), ``lflag``/``uflag``

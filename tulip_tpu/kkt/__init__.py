@@ -41,7 +41,6 @@ from .krylov import (CarK1Backend, CgK1Backend, CraigK1Backend,
                      MinaresK2Backend, MinresK2Backend, MinresQlpK2Backend,
                      SqdMinresK2Backend, SymmlqK2Backend, TricgK2Backend)
 from .mixed import MixedK1Backend
-from .pallas_chol import PallasK1Backend, PallasSmallK1Backend
 from .schur import SchurK1Backend
 from .sparse import SparseK1Backend
 from .sparse_ldl import SparseK2Backend
@@ -63,8 +62,7 @@ for _cls in (BandedK1Backend, DenseK1Backend, DenseK2Backend,
              MinaresK2Backend, MinresK2Backend, MinresQlpK2Backend,
              SqdMinresK2Backend, SymmlqK2Backend,
              TricgK2Backend,
-             MixedK1Backend,
-             PallasK1Backend, PallasSmallK1Backend, SchurK1Backend,
+             MixedK1Backend, SchurK1Backend,
              SparseK1Backend, SparseK2Backend, SplitK1Backend):
     register(_cls)
 
@@ -77,10 +75,13 @@ def make_backend(name=None, system=None, refinement_steps: int = 0,
                  **kwargs) -> KKTBackend:
     """Instantiate a backend by name (default: dense K1, like the
     reference's Float64 default resolving to a direct method,
-    reference: src/KKT/KKT.jl:134-141 — dense because MXU-tiled dense
-    Cholesky is the TPU-native direct method)."""
+    reference: src/KKT/KKT.jl:134-141 — dense because a dense GEMM +
+    Cholesky is the accelerator's native direct method)."""
     if name is None:
         name = "dense" if system in (None, "K1") else "dense-ldl"
+    if name not in _REGISTRY:
+        raise ValueError(f"unknown KKT backend {name!r}; available: "
+                         f"{sorted(_REGISTRY)}")
     cls = _REGISTRY[name]
     if system is not None and system not in cls.systems:
         raise ValueError(f"backend {name!r} does not support system {system!r}")
@@ -114,8 +115,6 @@ __all__ = [
     "SymmlqK2Backend",
     "TricgK2Backend",
     "MixedK1Backend",
-    "PallasK1Backend",
-    "PallasSmallK1Backend",
     "SchurK1Backend",
     "SparseK1Backend",
     "SparseK2Backend",

@@ -15,7 +15,7 @@ Instead:
 
       L₁ = chol(D₁);  Mᵢ = Eᵢ L₍ᵢ₋₁₎⁻ᵀ;  Lᵢ = chol(Dᵢ − Mᵢ Mᵢᵀ)
 
-  as a ``lax.scan`` of dense (bw, bw) MXU ops — O(m·bw²) flops instead of
+  as a ``lax.scan`` of dense (bw, bw) ops — O(m·bw²) flops instead of
   the dense O(m³) — with scan-based block forward/backward substitution.
 
 Falls back to the dense inverse-factor backend when the reordered
@@ -97,8 +97,8 @@ class BandedK1Backend(KKTBackend):
 
     name = "banded"
     systems = ("K1",)
-    # The symbolic bandwidth is rounded up to a multiple of this (MXU tile
-    # friendliness).
+    # The symbolic bandwidth is rounded up to a multiple of this (dense
+    # tile shapes).
     min_block: int = 64
     # "level": execute through the shared nested-dissection level engine
     # (kkt/levels.py via kkt/sparse.py) — the band's elimination chain

@@ -6,8 +6,8 @@ Solves the augmented system by pivoting on its (1,1) block: with
 (reference semantics: src/KKT/Dense/lapack.jl:65-119; K1 system
 src/KKT/systems.jl:34-54).
 
-TPU-first design notes:
-- ``K = (A √D)(A √D)ᵀ`` is a single large GEMM → MXU. The column scaling and
+Design notes:
+- ``K = (A √D)(A √D)ᵀ`` is a single large GEMM. The column scaling and
   the diagonal add fuse into the matmul's epilogue under XLA.
 - ``jnp.linalg.cholesky`` lowers to XLA's blocked Cholesky; non-SPD inputs
   yield NaNs, which we turn into the boolean ``ok`` flag the IPM's
@@ -40,19 +40,18 @@ class DenseK1Backend(KKTBackend):
     """K1 backend.
 
     ``inv_factor=True`` additionally inverts the Cholesky factor at update
-    time (one batched TRSM with m right-hand sides — good MXU utilization)
-    so that every subsequent backsolve becomes two GEMVs instead of two
-    sequential triangular solves. On TPU, where a single-RHS triangular
-    solve serializes into m tiny steps, this moves the 3-8 per-iteration
-    backsolves (reference profile: src/IPM/HSD/step.jl:63-136) onto the
-    MXU. Slightly less accurate than backsolves — pair with
-    ``refinement_steps>=1`` in f32.
+    time (one TRSM with m right-hand sides) so that every subsequent
+    backsolve becomes two GEMVs instead of two sequential triangular
+    solves: the 3-8 per-iteration backsolves (reference profile:
+    src/IPM/HSD/step.jl:63-136) become matrix-vector products. Slightly
+    less accurate than backsolves — pair with ``refinement_steps>=1`` in
+    f32.
 
     ``explicit_minv=True`` goes one step further and stores the full
     normal-equations inverse ``K⁻¹ = L⁻ᵀL⁻¹`` (one extra m×m GEMM at update
-    time), making every backsolve a SINGLE GEMV. On latency-bound platforms
-    the per-iteration op count drops by one op per base solve (~10 ops per
-    IPM iteration at CorrectionLimit=3); accuracy is comparable to the
+    time), making every backsolve a SINGLE GEMV: one op fewer per base
+    solve (~10 ops per IPM iteration at CorrectionLimit=3); accuracy is
+    comparable to the
     inverse-factor path (same ‖L⁻¹‖² amplification) — pair with
     ``refinement_steps>=1`` in f32.
     """
@@ -63,16 +62,8 @@ class DenseK1Backend(KKTBackend):
     explicit_minv: bool = False
     # Recursive blocked Cholesky+inverse (ops/blocked.py) kicks in for
     # inv_factor updates at m >= blocked_min: all super-leaf work becomes
-    # GEMMs, ~2x XLA's native cholesky+TRSM at m=8192 (measured v5e).
+    # GEMMs instead of XLA's cholesky + TRSM.
     blocked_min: int = 4096
-    # f32 matmul pass count for THIS backend's update/solve (innermost
-    # precision context wins over the IPM's trace-time "highest" pin).
-    # "high" = 3 bf16 passes, ~1.78x the 6-pass "highest" at the m=8192
-    # MFU point (49.9 vs 88.6 ms) with IDENTICAL residuals once
-    # refinement_steps >= 2 (5.1e-7; BASELINE.md round 5). Measured
-    # REJECTED for the small-m batched bench (a tail lane blows 12 -> 54
-    # iterations at 1 sweep): opt-in for large dense factorizations only.
-    matmul_precision: str = None
 
     def arithmetic(self, state) -> str:
         return str(state.A.dtype)
@@ -93,13 +84,6 @@ class DenseK1Backend(KKTBackend):
 
     def update(self, state: DenseK1State, theta_inv, regP, regD,
                ) -> Tuple[DenseK1State, jnp.ndarray]:
-        if self.matmul_precision is not None:
-            with jax.default_matmul_precision(self.matmul_precision):
-                return self._update_impl(state, theta_inv, regP, regD)
-        return self._update_impl(state, theta_inv, regP, regD)
-
-    def _update_impl(self, state: DenseK1State, theta_inv, regP, regD,
-                     ) -> Tuple[DenseK1State, jnp.ndarray]:
         A = state.A
         theta_reg = theta_inv + regP
         d = 1.0 / theta_reg
@@ -146,10 +130,5 @@ class DenseK1Backend(KKTBackend):
         return dx, dy
 
     def solve(self, state: DenseK1State, xi_p, xi_d):
-        if self.matmul_precision is not None:
-            with jax.default_matmul_precision(self.matmul_precision):
-                dx, dy = self._base_solve(state, xi_p, xi_d)
-                return self._refine(state, xi_p, xi_d, dx, dy,
-                                    self._base_solve)
         dx, dy = self._base_solve(state, xi_p, xi_d)
         return self._refine(state, xi_p, xi_d, dx, dy, self._base_solve)

@@ -8,11 +8,10 @@ Assembles the full symmetric quasi-definite matrix
 
 Quasi-definite matrices are strongly factorizable: LDLᵀ without pivoting
 exists for any symmetric permutation (Vanderbei 1995), which is what makes a
-static, branchless, TPU-friendly factorization possible — no dynamic pivot
+static, branchless factorization possible — no dynamic pivot
 selection. The factorization is a ``lax.fori_loop`` of rank-1-free column
 updates (one matvec per column); fine for the capability-parity path. The
-performance path on TPU is the K1 backend (single MXU GEMM + XLA blocked
-Cholesky).
+performance path is the K1 backend (single GEMM + XLA Cholesky).
 
 K2 matters when A has dense columns (K1's AΘAᵀ fills in) or for
 ill-conditioned problems (reference defaults to K2,

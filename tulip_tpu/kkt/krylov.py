@@ -3,8 +3,8 @@
 Counterpart of the reference's TlpKrylov module
 (reference: src/KKT/Krylov/{krylov,defs,spd,sid}.jl): instead of a
 factorization, ``update`` only refreshes the diagonals, and ``solve`` runs an
-iterative method against an implicit operator. On TPU the operator
-application is two GEMVs (MXU work), and everything sits inside
+iterative method against an implicit operator. The operator
+application is two GEMVs, and everything sits inside
 ``lax.while_loop`` — no host round-trips per Krylov iteration.
 
 - ``CgK1Backend``: conjugate gradients on the SPD normal-equations operator

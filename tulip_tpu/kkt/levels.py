@@ -1,11 +1,10 @@
 """Elimination-level scheduled execution for the tiled sparse backends.
 
-The round-3 tiled backends (kkt/sparse.py, kkt/sparse_ldl.py, kkt/banded.py)
-execute their static tile schedules as a ``lax.fori_loop`` over block
-columns — one tiny (B, B) Cholesky + a short batched TRSM/GEMM per step.
-On TPU that serializes hundreds of sub-millisecond ops and leaves the MXU
-idle (measured 0.8–15% of the f32-effective peak at m=8192, BASELINE.md
-round-3 table). This module replaces the column-at-a-time execution with
+The column schedule of the tiled backends (kkt/sparse.py,
+kkt/sparse_ldl.py, kkt/banded.py) executes their static tile schedules as
+a ``lax.fori_loop`` over block columns — one tiny (B, B) Cholesky + a
+short batched TRSM/GEMM per step, which serializes hundreds of small ops
+and leaves the device mostly idle. This module replaces the column-at-a-time execution with
 the supernodal-parallelism analogue of CHOLMOD's elimination tree
 (reference: src/KKT/Cholmod/spd.jl:30-49 symbolic/numeric split):
 
@@ -26,7 +25,7 @@ the supernodal-parallelism analogue of CHOLMOD's elimination tree
   substitution runs over the same levels.
 
 ND fill on a chain is ~1.5–2x the band fill (each leaf column gains its
-enclosing separators as ancestors), but every op is MXU-shaped and the
+enclosing separators as ancestors), but every op is a batched dense op and the
 sequential depth drops from nb to log nb.
 """
 
@@ -261,7 +260,7 @@ def level_factor_spd(T: jnp.ndarray, segs: Sequence[LevelSeg],
             Linv = _batched_trsm(L, jnp.broadcast_to(eye, L.shape))
             ok_l = ok_l & jnp.all(jnp.isfinite(Linv))
             Linv = jnp.where(ok_l, Linv, eye)
-            # L_ij = T_ij L_j⁻ᵀ as a GEMM (TRSMs don't map to the MXU).
+            # L_ij = T_ij L_j⁻ᵀ as a GEMM instead of a TRSM.
             Lsub = jnp.einsum("sbc,sdc->sbd", Sub, Linv[seg.sub_owner])
             diag_store = Linv
         else:

@@ -1,15 +1,14 @@
 """Mixed-precision K1 backend: f32 factorization, f64 refinement.
 
 The O(m³) work (normal-equations Gram + Cholesky + factor inverse) runs in
-f32 — native MXU speed on TPU, where f64 is software-emulated — while the
-O(m²) per-solve work (residuals + GEMV corrections) runs in f64. Iterative
+f32 — at f32 rates where f64 is slower — while the O(m²) per-solve work (residuals + GEMV corrections) runs in f64. Iterative
 refinement against the f64 augmented system recovers f64-grade solve
 accuracy as long as eps_f32·cond(K) < 1; the IPM's regularization floors
 keep cond(K) bounded, so pair this backend with ``PRegMin/DRegMin ≈ 1e-6``
 rather than the f64 default √eps.
 
 This is the designed answer to "survive bf32/f32 ill-conditioning near
-convergence" (BASELINE.json north star) — the reference sidesteps the
+convergence" — the reference sidesteps the
 problem by running LAPACK/CHOLMOD in f64 and leaves refinement as a TODO
 (reference: src/KKT/Dense/lapack.jl:117).
 """
@@ -68,8 +67,8 @@ class MixedK1Backend(KKTBackend):
         K32 = B32 @ B32.T + jnp.diag(regD.astype(jnp.float32))
         m = K32.shape[-1]
         if m >= self.blocked_min:
-            # Recursive blocked chol+inverse: GEMM-dominated, ~2x XLA's
-            # cholesky+TRSM at this scale (see ops/blocked.py).
+            # Recursive blocked chol+inverse: GEMM-dominated (see
+            # ops/blocked.py).
             from ..ops.blocked import cholesky_invfactor_blocked
 
             _, Li32 = cholesky_invfactor_blocked(K32)

@@ -12,17 +12,11 @@ be built (callers use :func:`native_available`).
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
 from typing import Optional, Tuple
 
 import numpy as np
 
-_REPO_ROOT = os.path.abspath(
-    os.path.join(os.path.dirname(__file__), "..", ".."))
-_SO_PATH = os.path.join(_REPO_ROOT, "native",
-                        os.environ.get("TULIP_NATIVE_DIR", "build"),
-                        "libtulip_symbolic.so")
+from ..utils import native_library
 
 _lib = None
 _tried = False
@@ -35,24 +29,16 @@ _I32P = ctypes.POINTER(ctypes.c_int32)
 UNAVAILABLE = object()
 
 
-def _build() -> bool:
-    try:
-        subprocess.run(["make", "-C", os.path.join(_REPO_ROOT, "native")],
-                       check=True, capture_output=True, timeout=120)
-        return os.path.exists(_SO_PATH)
-    except Exception:
-        return False
-
-
 def _load():
     global _lib, _tried
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not os.path.exists(_SO_PATH) and not _build():
+    path = native_library("libtulip_symbolic.so")
+    if path is None:
         return None
     try:
-        lib = ctypes.CDLL(_SO_PATH)
+        lib = ctypes.CDLL(path)
         lib.tlp_rcm.restype = ctypes.c_int32
         lib.tlp_rcm.argtypes = [ctypes.c_int32, ctypes.c_int32, _I32P, _I32P,
                                 _I32P]

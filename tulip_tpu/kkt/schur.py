@@ -23,8 +23,8 @@ Parallel structure: everything indexed by k is batched (K, …) arrays; with
 the K axis sharded over a device mesh, the per-scenario Cholesky of Mk, the
 triangular solves, and the Gk = Tkᵀ Mk⁻¹ Tk Gram products are local to each
 device, and the two ``Σk`` reductions (an n0×n0 matrix in ``update``, an
-n0 vector in ``solve``) become XLA ``psum`` collectives over ICI — the
-textbook distributed Schur-complement pattern (BASELINE.json north star).
+n0 vector in ``solve``) become XLA ``psum`` collectives — the textbook
+distributed Schur-complement pattern.
 """
 
 from __future__ import annotations

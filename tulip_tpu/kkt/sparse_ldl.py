@@ -1,5 +1,5 @@
 """Tiled sparse K2 (augmented system) backend: host symbolic analysis +
-MXU-tile block LDLᵀ of the quasi-definite matrix.
+dense-tile block LDLᵀ of the quasi-definite matrix.
 
 This is the structured equivalent of the reference's workhorse sparse
 backend — CHOLMOD LDLᵀ on the augmented system (reference:
@@ -9,7 +9,7 @@ dense column densifies K1 = AΘAᵀ completely, but in K2 it is a single
 dense row/column that a dense-last ordering confines to the trailing
 block, and κ(K2) = √κ(K1) helps near convergence.
 
-Re-designed for the MXU rather than translated:
+Re-designed for dense tiles rather than translated:
 
 - HOST (symbolic, at ``setup``): build the pattern of
   K2 = [[-Θ-Rp, Aᵀ], [A, Rd]] over N = n+m nodes; nodes whose degree
@@ -30,14 +30,12 @@ Re-designed for the MXU rather than translated:
   used ``inv(D_j)`` and its κ(block)·eps forward error stalled real IPM
   trajectories at ~1e-4 gaps). Subdiagonal L tiles come from batched
   TRSMs (or GEMMs against the per-tile triangular inverse U_j⁻¹ when
-  ``inv_factor=True``, the TPU default — TRSMs don't map to the MXU),
+  ``inv_factor=True``, the default),
   right-looking ``-L_a Σ L_bᵀ`` updates from batched GEMMs. Tile
   ASSEMBLY is free: the off-diagonal A-values of every tile are
   precomputed at ``setup`` (they never change across IPM iterations),
   so each ``update`` starts with one vectorized rescale of the constant
-  tile store instead of a serialized gather loop — together with
-  ``inv_factor`` this is a measured 21x on TPU at m=8192 (302 → 14 ms
-  per factorize+solve).
+  tile store instead of a serialized gather loop.
 - ``solve`` is blocked forward substitution (triangular solve or
   U_j⁻¹ GEMV per block), a sign flip Σ, and blocked backward
   substitution, followed by the shared iterative-refinement sweeps on
@@ -247,9 +245,8 @@ class SparseK2Backend(KKTBackend):
     schedule: str = "column"
     # Store U_j⁻¹ (triangular inverse, ONE extra TRSM per block column)
     # and run the per-column L-tile formation and the fwd/bwd solves as
-    # GEMMs instead of batched TRSMs — TRSMs don't map to the MXU and
-    # dominate wall-clock on TPU (measured 28x at m=8192). Unlike the
-    # abandoned pivot-block inverses (κ(D)·eps), the triangular factor
+    # GEMMs instead of batched TRSMs (many small TRSMs run far below
+    # GEMM rates). Unlike the abandoned pivot-block inverses (κ(D)·eps), the triangular factor
     # has κ(U) = √κ(D), and the shared refinement sweeps restore the
     # rest: end-to-end accuracy is unchanged (tests cover both modes).
     inv_factor: bool = True
@@ -298,8 +295,7 @@ class SparseK2Backend(KKTBackend):
         # side: the A entries never change across IPM iterations — only
         # the Jacobi scaling and the diagonal do — so ``update`` becomes
         # one vectorized rescale instead of a serialized per-block-column
-        # gather loop (measured 28x wall-clock on TPU at m=8192, where
-        # random-access gathers from the dense A dominated).
+        # gather loop of random-access gathers from the dense A.
         ntiles = plan["ntiles"]
         tile_brow = np.full(ntiles + 1, nbr, np.int32)
         tile_bcol = np.full(ntiles + 1, nbr, np.int32)

@@ -10,7 +10,7 @@ switching systems (PCx, Andersen & Andersen) is to split A = As + U eᵀ:
     K1 = As Θs Asᵀ + Rd  +  U Θd Uᵀ        (U = the k dense columns)
          └────── B: sparse, SPD ──────┘     └ rank-k correction ┘
 
-factor B with the tile-granular MXU Cholesky (kkt/sparse.py) and apply
+factor B with the tile-granular Cholesky (kkt/sparse.py) and apply
 
     K1⁻¹ r = B⁻¹r − B⁻¹U (Θd⁻¹ + Uᵀ B⁻¹ U)⁻¹ Uᵀ B⁻¹ r.
 
@@ -22,7 +22,7 @@ system (the full A, including dense columns).
 
 Device cost per IPM iteration: one tiled sparse factorization + k extra
 tiled backsolves + a (k, k) Cholesky; per solve: one tiled backsolve +
-two skinny GEMVs. All MXU-shaped; k is the (small) dense-column count.
+two skinny GEMVs. All dense ops; k is the (small) dense-column count.
 """
 
 from __future__ import annotations

@@ -114,8 +114,7 @@ def run_ls_tests(A, backend, atol: float = None, sweep: bool = True,
             # direct-method robustness: there a factorization failure at
             # √eps regularization floors IS the late-IPM regression
             # (e.g. the K2 level schedule's separator growth, which is
-            # why sparse-ldl defaults to the RCM column schedule —
-            # BASELINE.md round 4).
+            # why sparse-ldl defaults to the RCM column schedule).
             assert not strict_sweep, (
                 f"{backend.name}: update reported failure on the {label} "
                 f"sweep at the √eps regularization floors")

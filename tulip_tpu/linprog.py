@@ -112,10 +112,10 @@ def batch_linprog(problems: Sequence[dict], *, dtype="float32",
                   presolve: Optional[bool] = None) -> list:
     """Solve MANY independent LPs in one vmapped device program.
 
-    No scipy or reference analogue — this is the TPU-native scaling axis
+    No scipy or reference analogue — this is the batched scaling axis
     (SURVEY §2.6 DP row): every instance's iterates, residuals and KKT
     factorizations gain a leading batch dimension, so the per-iteration
-    work is batched GEMM/Cholesky on the MXU.
+    work is batched GEMM/Cholesky on the device.
 
     ``problems``: sequence of dicts with :func:`linprog` keywords
     (``c`` required; ``A_ub``/``b_ub``/``A_eq``/``b_eq``/``bounds``
@@ -142,7 +142,7 @@ def batch_linprog(problems: Sequence[dict], *, dtype="float32",
     from .ipm.data import standard_form_arrays
     from .ipm.hsd import HSDOptions
     from .ipm.mpc import MPCOptions
-    from .kkt import DenseK1Backend, PallasSmallK1Backend
+    from .kkt import DenseK1Backend
     from .model import _extract_solution
     from .presolve import PresolveData, postsolve
     from .problem import ProblemData
@@ -196,12 +196,8 @@ def batch_linprog(problems: Sequence[dict], *, dtype="float32",
     import jax.numpy as jnp
 
     if backend is None:
-        if dt == np.float32 and jax.default_backend() == "tpu":
-            backend = PallasSmallK1Backend(refinement_steps=1)
-        else:
-            backend = DenseK1Backend(
-                inv_factor=True,
-                refinement_steps=1 if dt == np.float32 else 0)
+        backend = DenseK1Backend(
+            inv_factor=True, refinement_steps=1 if dt == np.float32 else 0)
     ipm = params.IPM.resolved(dt)
     opt_kw = dict(
         TolerancePFeas=ipm.TolerancePFeas, ToleranceDFeas=ipm.ToleranceDFeas,

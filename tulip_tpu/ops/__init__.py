@@ -1,5 +1,1 @@
-"""Pallas TPU kernels for the solver's hot ops."""
-
-from .chol import cholesky_inverse_pallas, cholesky_pallas
-
-__all__ = ["cholesky_pallas", "cholesky_inverse_pallas"]
+"""Array kernels in plain JAX: blocked Cholesky, double-double."""

@@ -1,12 +1,9 @@
 """Recursive blocked Cholesky + triangular-inverse for large dense SPD
 matrices.
 
-XLA's native ``cholesky`` and ``triangular_solve`` run at only 3-5
-TFLOP/s on TPU at m = 8192 (measured v5e, f32-highest) because their
-panel algorithms serialize on narrow TRSMs that do not map to the MXU.
-This module re-expresses both as a single recursive bisection in which
-ALL work above the leaf size is plain GEMMs (which run at the ~21
-TFLOP/s the Gram-matrix product reaches on the same chip):
+XLA's native ``cholesky`` and ``triangular_solve`` use panel algorithms
+that serialize on narrow TRSMs. This module re-expresses both as a single
+recursive bisection in which ALL work above the leaf size is plain GEMMs:
 
     K = [[K11, K21ᵀ], [K21, K22]]
     L11, X11 = factor(K11)              # recurse
@@ -19,7 +16,9 @@ TFLOP/s the Gram-matrix product reaches on the same chip):
 The leaf uses XLA's cholesky + triangular inverse at a size where they
 are cheap. Producing L and L⁻¹ together costs the same GEMMs the
 inverse-factor path already pays (one TRSM with m right-hand sides),
-re-ordered so the MXU sees them as large matmuls.
+re-ordered as large matmuls. Whether this beats XLA's own factorization
+(cuSOLVER on the GPU) at IPM sizes is not measured yet; ``blocked_min``
+in the dense backends sets where it engages.
 
 Numerics: the Cholesky recursion is the standard blocked right-looking
 algorithm (backward stable); the inverse assembly amplifies by κ(L)
@@ -27,8 +26,7 @@ exactly like the one-shot TRSM it replaces — the dense backend pairs it
 with iterative refinement, unchanged.
 
 No reference analogue: Tulip's dense backend calls LAPACK POTRF
-(reference: src/KKT/Dense/lapack.jl:83-97); LAPACK does not exist on
-TPU and XLA's substitutes leave ~2x on the table at IPM sizes.
+(reference: src/KKT/Dense/lapack.jl:83-97).
 """
 
 from __future__ import annotations
@@ -55,8 +53,8 @@ def cholesky_invfactor_blocked(K: jnp.ndarray, leaf: int = 2048):
     m = K.shape[0]
     if m <= leaf:
         return _leaf(K)
-    # Split near m/2, rounded UP to an MXU-aligned multiple (256, or the
-    # leaf size when smaller): p is always in [align, m).
+    # Split near m/2, rounded UP to a multiple of 256 (or of the leaf
+    # size when smaller): p is always in [align, m).
     align = min(256, leaf)
     p = -(-(m // 2) // align) * align
     K11 = K[:p, :p]

@@ -12,7 +12,7 @@ path including XLA:CPU and the TPU's emulated f64) and the double-word
 algorithms of Joldes, Muller & Popescu (2017).
 
 Everything is expressed as elementwise jnp ops + O(log n) pairwise
-reduction levels, so the routines jit/vmap and stay MXU/VPU-friendly —
+reduction levels, so the routines jit/vmap and stay vectorized —
 an extended-precision matvec is a broadcasted two-prod followed by a
 log-depth compensated tree sum, not a scalar loop.
 

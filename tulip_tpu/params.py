@@ -84,17 +84,19 @@ class KKTOptions:
 
     ``Backend``/``System`` name a registered backend (see
     :mod:`tulip_tpu.kkt`). ``None`` selects the default for the problem
-    (dense K1 normal equations on TPU).
+    (dense K1 normal equations, or a structured backend chosen from the
+    problem's size and pattern).
     """
 
-    Backend: Optional[str] = None   # "dense", "cholesky-pallas", "cg", ...
+    Backend: Optional[str] = None   # "dense", "sparse", "cg", ...
     System: Optional[str] = None    # "K1" (normal eqs) or "K2" (augmented)
     # Iterative-refinement steps applied after each KKT solve. Essential for
-    # f32/bf16 on TPU near convergence; the reference leaves this as a TODO
+    # f32 near convergence; the reference leaves this as a TODO
     # (src/KKT/Dense/lapack.jl:117). ``None`` = per-backend default
     # (2 for sparse-smw / sparse-ldl — SMW's forward error at late-IPM Θ
-    # needs two sweeps on the true system to hold 1e-8; 1 for the f32
-    # Pallas path; 0 otherwise). Set explicitly to override.
+    # needs two sweeps on the true system to hold 1e-8; 2 / 1 for the
+    # extended / extended-dd backends; 0 otherwise). Set explicitly to
+    # override.
     RefinementSteps: Optional[int] = None
     # Sparse-first standard form: build the IPM data in support-compressed
     # tile form straight from COO, never materializing the dense (m, n)

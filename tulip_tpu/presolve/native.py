@@ -15,23 +15,14 @@ Falls back silently when the library can't be built — callers use
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
 from typing import Optional
 
 import numpy as np
 
 from ..solution import Solution
 from ..status import SolutionStatus, TerminationStatus
+from ..utils import native_library
 from . import ops as OPS
-
-_REPO_ROOT = os.path.abspath(
-    os.path.join(os.path.dirname(__file__), "..", ".."))
-# TULIP_NATIVE_DIR selects an alternative build dir (relative to
-# native/), e.g. an AddressSanitizer build for memory-safety runs.
-_SO_PATH = os.path.join(_REPO_ROOT, "native",
-                        os.environ.get("TULIP_NATIVE_DIR", "build"),
-                        "libtulip_presolve.so")
 
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
@@ -41,24 +32,16 @@ _lib = None
 _tried = False
 
 
-def _build() -> bool:
-    try:
-        subprocess.run(["make", "-C", os.path.join(_REPO_ROOT, "native")],
-                       check=True, capture_output=True, timeout=120)
-        return os.path.exists(_SO_PATH)
-    except Exception:
-        return False
-
-
 def _load():
     global _lib, _tried
     if _tried:
         return _lib
     _tried = True
-    if not os.path.exists(_SO_PATH) and not _build():
+    path = native_library("libtulip_presolve.so")
+    if path is None:
         return None
     try:
-        lib = ctypes.CDLL(_SO_PATH)
+        lib = ctypes.CDLL(path)
         lib.tlp_presolve_run.restype = ctypes.c_void_p
         lib.tlp_presolve_run.argtypes = [
             ctypes.c_int32, ctypes.c_int32,
